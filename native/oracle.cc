@@ -1,5 +1,5 @@
 // oracle — standalone CPU ray tracer used as the correctness + speed
-// baseline for the TPU framework.
+// baseline for the JAX framework.
 //
 // This is a from-scratch implementation of the algorithm of the serial
 // reference tracer (see SURVEY.md §3.1): uniform-grid acceleration with
@@ -18,7 +18,7 @@
 //     ambient is added; PPM clamp is min(1, c/255)*255 truncated.
 //
 // Data layout is struct-of-arrays (not per-triangle heap objects), and
-// the grid is CSR, matching the TPU framework's layout so the two
+// the grid is CSR, matching the JAX framework's layout so the two
 // implementations are structurally comparable.
 //
 // Usage:

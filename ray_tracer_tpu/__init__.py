@@ -1,6 +1,6 @@
-"""ray_tracer_tpu — a TPU-native differentiable ray-tracing framework.
+"""ray_tracer_tpu — a differentiable ray-tracing framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 CPU/CUDA ray tracer (kshanmol/ray-tracer): OBJ triangle meshes, a PBRT-style
 uniform-grid acceleration structure with 3D-DDA traversal, Cramer's-rule
 ray-triangle intersection, Blinn-Phong shading, shadow rays, and mirror
@@ -9,7 +9,7 @@ reflections — plus capabilities the reference lacks: differentiability
 multi-chip/multi-host sharding of ray batches over a `jax.sharding.Mesh`,
 and a validation harness against a re-hosted serial C++ oracle.
 
-Design stance (TPU-first, not a port):
+Design stance (dense arrays, not a port):
   * No pointers, no queues, no recursion. Scenes are dense SoA arrays;
     rays are SoA pytrees; the wavefront "scheduler" of the reference
     (persistent CUDA kernels + atomic work queues,
@@ -21,7 +21,7 @@ Design stance (TPU-first, not a port):
   * Reflection recursion (reference: Parallel/raytracer.cu:508-520) is a
     statically unrolled, masked bounce loop.
   * Multi-device: `shard_map` over a device mesh shards pixel tiles;
-    geometry + grid are replicated; gradients are `psum`-reduced over ICI.
+    geometry + grid are replicated; gradients are `psum`-reduced.
 """
 
 __version__ = "0.1.0"

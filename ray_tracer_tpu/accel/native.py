@@ -2,7 +2,7 @@
 
 The framework works without the native library (numpy fallbacks are the
 correctness references); when built (`make -C native`), OBJ parsing and
-grid construction run in C++ — the TPU-native counterpart of the
+grid construction run in C++ — the counterpart of the
 reference's native host components (OBJ loader Serial/raytracer.cpp:220-287,
 two-pass grid build Parallel/grid.cuh:137-207).
 """

@@ -110,8 +110,8 @@ class GridConfig:
     exact_overlap: bool = False
     # Empty-cell leap geometry for the packed layouts: "box" (default)
     # stores each empty cell's greedy maximal empty box (six 5-bit
-    # per-direction extents — anisotropic leaps; measured -21% primary
-    # / -36% shadow probe steps on the dense displaced-sphere scene),
+    # per-direction extents — anisotropic leaps; 21% fewer primary and
+    # 36% fewer shadow probe steps on the dense displaced-sphere scene),
     # "cheb" the rounds-1-3 symmetric Chebyshev cube (kept for
     # reproduction).  Hits are identical either way; only step counts
     # and therefore throughput differ (accel/packed.greedy_empty_boxes).
@@ -143,7 +143,7 @@ class RenderConfig:
     traversal: str = "csr"
     # Triangles per packed block row (14/28/56); 0 = auto: prepare()
     # rounds the measured mean triangles-per-occupied-voxel up to the
-    # next row size (sweep-measured winners: spot 8.5 -> 14,
+    # next row size (the previous chip's sweep winners: spot 8.5 -> 14,
     # nefertiti 24.8 -> 28, parallel scene 56.9 -> 56).
     packed_block_tris: int = 14
     packed_unroll: int = 1  # march steps per while_loop iteration
@@ -158,7 +158,7 @@ class RenderConfig:
     # via lax.map (one while_loop per tile).  "persistent": ONE
     # while_loop with a `wave`-lane persistent wavefront — retiring
     # lanes scatter their result and pop the next ray (ops/persistent.py,
-    # the TPU translation of the CUDA persistent-thread work queue,
+    # the dense translation of the CUDA persistent-thread work queue,
     # Parallel/raytracer.cu:177-233).
     scheduler: str = "tiled"
     wave: int = 65536  # persistent-scheduler lane count
@@ -173,26 +173,26 @@ class RenderConfig:
     queue_order: str = "fifo"
     # Cell probes per march step (blocks layout only): lanes that are
     # pure leapers after the combined probe+test phase run up to
-    # probe_chain-1 more cell_info probes in the SAME step — measured
-    # 84-87% of a dense rough-shell scene's lane-steps are probe/leap
-    # steps (tools/phase_split.py), and each extra dependent gather
-    # costs ~+5 ns amortized vs ~22-27 ns for a whole step.  Results
-    # are chain-invariant (same cells, same hits; fewer steps).
+    # probe_chain-1 more cell_info probes in the SAME step — 84-87% of
+    # a dense rough-shell scene's lane-steps are probe/leap steps
+    # (tools/phase_split.py), so an extra dependent gather per step can
+    # replace whole steps.  Results are chain-invariant (same cells,
+    # same hits; fewer steps).
     probe_chain: int = 1
     # Extra pop attempts per persistent-wave refill for lanes whose
     # popped camera ray fails the entry slab test (ops/persistent):
     # None = the scheduler's auto (3 on the camera-regen path — the
-    # measured spot knee, where ~50% of camera rays miss the tight
-    # AABB; 0 on the gather path).  Full-coverage scenes whose camera
+    # spot knee on the previous chip, where ~50% of camera rays miss
+    # the tight AABB; 0 on the gather path).  Full-coverage scenes whose camera
     # rays nearly all enter (the dense stand-in) want 0-1: each retry
     # re-runs the camera math for the whole wave.  Bit-identical
     # output for any value.
     refill_retries: "int | None" = None
     # Persistent-wave depth-0 refill source: "on" = regenerate popped
-    # camera rays from their pixel index (zero-gather; wins when many
+    # camera rays from their pixel index (zero-gather; won when many
     # camera rays die at the grid AABB slab — spot), "off" = gather
-    # from the packed (R,8) ray table (wins on full-coverage scenes —
-    # measured 148 vs 174 ms on the dense stand-in), "auto" = callers
+    # from the packed (R,8) ray table (won on full-coverage scenes such
+    # as the dense stand-in), "auto" = callers
     # that hold a Prepared scene resolve it with the strided slab probe
     # render/metrics.choose_camera_refill; the renderer treats an
     # unresolved "auto" as "on" (the historical default).  Bit-identical
@@ -250,12 +250,11 @@ class RenderConfig:
     # Shadow samples traced per wavefront (the gi_sample_batch trick
     # applied to area-light shadows).  Bitwise-invariant — each
     # sample's occlusion is computed and accumulated in the same
-    # sequential order either way.  MEASURED NEGATIVE on v5e (unlike
-    # the GI sample batch): with the sample traversals compacted,
-    # batch 1/4/8 = 207/252/259 ms on the 8-sample 1024^2 penumbra —
-    # separate compacted per-sample waves win, so the default stays 1
-    # (the speedup that DID land is compacting these ~88%-dead
-    # batches: 336 -> 207 ms; docs/PERFORMANCE.md).
+    # sequential order either way.  A negative on the previous chip
+    # (unlike the GI sample batch): with the sample traversals
+    # compacted, separate per-sample waves were faster on the 8-sample
+    # 1024^2 penumbra, so the default stays 1.  Not yet measured on
+    # the H100.
     shadow_sample_batch: int = 1
     # Path-traced global illumination (render/pathtrace.py — a
     # production feature far beyond the reference's Whitted-style
@@ -425,7 +424,7 @@ class SceneConfig:
 
 
 # ---------------------------------------------------------------------------
-# Tuned production knobs (sweep-measured on TPU v5e; docs/PERFORMANCE.md)
+# Tuned production knobs
 # ---------------------------------------------------------------------------
 
 # The ONE per-scene tuned-knob table, consumed by bench.py AND the CLI's
@@ -435,23 +434,19 @@ class SceneConfig:
 # spot+blub flagship; "nefertiti" = the dense 261k-tri stand-in;
 # "parallel" = the CUDA-variant reflective scene.  None = generic
 # fallback for unknown/custom scenes.
+#
+# The values were swept on the previous chip (tools/box_sweep.py and
+# the bench) and are carried over unchanged: they are correct on any
+# device, but none has been tuned on the H100 yet.
 TUNED_KNOBS = {
-    # Re-kneed under the round-4 anisotropic empty-box leaps
-    # (tools/box_sweep.py).  Box leaps made empty cells cheap, which
-    # moved the DENSE-scene knee to a 2x finer grid with narrow rows:
-    # nefertiti bt28/rm1.25/64/w8192 (7.86 under the Chebyshev cube,
-    # 10.2 under boxes) -> bt14/rm2.0/128/w4608 = 12.65 Mrays/s.
-    # Sparse spot keeps its knobs (w12288 still the measured knee);
-    # parallel keeps w8192 (the w6144 +5% was measured on the
-    # primary-only sweep harness, not the full bounce pipeline).
-    # wwave: the cross-depth Whitted wave (ops/whitted_wave.py) is a
-    # MIRROR-scene win (+25% on the 3-bounce parallel scene: the
-    # per-depth queue sweeps and dead-lane epilogues it deletes).  On
-    # single-depth scenes the fused persistent march already is one
-    # wave, so the wave's per-round vertex-resolve gathers only add
-    # cost (nefertiti 12.4 -> 9.0 measured) — tuned off there.
-    # gi_pump: the GI wave's own pump knee (sweep at the official GI
-    # config: pump 4/6/8 = 43.3/47.8/45.6 Mpaths/s; wave 16384 loses)
+    # Box leaps made empty cells cheap, which moved the DENSE-scene
+    # knee to a 2x finer grid with narrow rows (bt14/rm2.0/128/w4608).
+    # wwave: the cross-depth Whitted wave (ops/whitted_wave.py) won on
+    # the MIRROR scene (it deletes the per-depth queue sweeps and
+    # dead-lane epilogues).  On single-depth scenes the fused persistent
+    # march already is one wave, so the wave's per-round vertex-resolve
+    # gathers only add cost — off there.
+    # gi_pump: the GI wave's own pump knee at the official GI config.
     "serial": dict(block_tris=14, rm=2.0, max_res=128, wave=12288, pump=4,
                    exact=True, wwave=False, gi_pump=6),
     "nefertiti": dict(block_tris=14, rm=2.0, max_res=128, wave=4608, pump=4,
@@ -459,8 +454,7 @@ TUNED_KNOBS = {
     # wwave_pump/wwave_wave: the cross-depth wave's own knee — its
     # per-round transition (vertex resolve + in-wave shading) amortizes
     # over pump march steps, pushing the knee far beyond the plain
-    # fused march's (sweep: pump 4/6/8/10/12/14/16 = 11.2/10.8/11.3/
-    # 13.1/11.6/11.3/10.6 at wave 8192; wave 12288 at pump 10 = 13.7)
+    # fused march's
     "parallel": dict(block_tris=14, rm=2.0, max_res=64, wave=8192, pump=4,
                      exact=True, wwave=True, wwave_pump=10,
                      wwave_wave=12288),
@@ -472,7 +466,7 @@ TUNED_KNOBS = {
 def apply_turbo(cfg: "SceneConfig", scene_family: "str | None") -> "SceneConfig":
     """The tuned production pipeline: packed block rows + the persistent
     wavefront + auto grid layout + SAT-exact grid insertion, with the
-    per-scene sweep-measured knobs from TUNED_KNOBS."""
+    per-scene knobs from TUNED_KNOBS."""
     import dataclasses
 
     k = TUNED_KNOBS.get(scene_family, TUNED_KNOBS[None])

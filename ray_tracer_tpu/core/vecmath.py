@@ -1,9 +1,9 @@
 """Batched 3-vector math on arrays of shape (..., 3).
 
-TPU-native counterpart of the reference's scalar Vec3<T> template
+Dense counterpart of the reference's scalar Vec3<T> template
 (Serial/geometry.h:13-78, Parallel/geometry.cuh:11-76): instead of one
 object per vector, every op broadcasts over arbitrarily batched SoA
-arrays so XLA vectorises them onto the VPU's 8x128 lanes.
+arrays so XLA vectorises them.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Wavefront OBJ loading into flat SoA arrays.
 
-TPU-native counterpart of the reference's load_mesh
+Array counterpart of the reference's load_mesh
 (Serial/raytracer.cpp:220-287, Parallel/raytracer.cu:805-873): the same
 subset of OBJ (`v`, `vt`, `f v/vt v/vt v/vt`), 1-based indices, per-mesh
 offset and scale applied as scale * (coord + offset) in double precision

@@ -148,8 +148,8 @@ def camera_ray_at(cfg: CameraConfig, idx: jnp.ndarray, dtype=jnp.float32,
     bitwise): idx = s*H*W + y*W + x with subsample s < spp*spp.
 
     This is the zero-gather ray source for the persistent wave's refill
-    — regenerating a popped camera ray from its index is pure VPU math,
-    cheaper than fetching it from an (R, 8) HBM table."""
+    — regenerating a popped camera ray from its index is pure
+    arithmetic, with no fetch from an (R, 8) device table."""
     pos, u, v, w, fd = camera_basis(cfg, dtype=dtype)
     width, height = cfg.width, cfg.height
     aspect = float(width) / float(height)

@@ -281,7 +281,7 @@ def gi_wave_trace(
     def pop_once(s):
         """Idle lanes pop the next unserved pixels (the deterministic
         cumsum queue) and regenerate their camera ray from the index —
-        pure VPU math, zero gathers (ops/persistent.py)."""
+        pure arithmetic, zero gathers (ops/persistent.py)."""
         # an epend lane is dead-but-not-done (its escape resolves next
         # transition) — it must NOT be popped over
         idle = ~s["alive"] & ~s["epend"]

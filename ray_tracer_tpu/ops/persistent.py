@@ -1,10 +1,10 @@
 """Persistent wave march: ONE while_loop for the whole ray batch.
 
-The tiled scheduler (render/renderer.py + lax.map) pays two measured
-costs (docs/PERFORMANCE.md): ~16 us of fixed setup per while_loop
-instance (4,096 instances/frame at 1024^2 = ~65 ms) and tile-tail
-divergence (a 512-lane lock-step tile retires at its slowest lane).
-This module is the TPU translation of the CUDA reference's persistent
+The tiled scheduler (render/renderer.py + lax.map) pays two costs: a
+fixed setup per while_loop instance (4,096 instances/frame at 1024^2)
+and tile-tail divergence (a 512-lane lock-step tile retires at its
+slowest lane).  This module is the dense translation of the CUDA
+reference's persistent
 threads (Parallel/raytracer.cu:177-233: an infinite per-thread loop
 popping rays from a global atomic work queue): a fixed WAVE of W lanes
 marches in lock-step inside a single `lax.while_loop`, and the atomic
@@ -124,9 +124,8 @@ def persistent_trace(
 
     `pump` runs that many march steps per scatter+refill round: the
     scatter and refill costs amortize over `pump` steps, at the price
-    of retired lanes idling until the round ends (measured: rays
-    average only a handful of steps, so pump>2 loses more occupancy
-    than it saves).  Results are invariant to `pump` — a retiring
+    of retired lanes idling until the round ends (rays average only a
+    handful of steps, so a large pump loses occupancy).  Results are invariant to `pump` — a retiring
     lane's record is latched per-lane the step it finishes and only
     the scatter is deferred.
 
@@ -161,13 +160,13 @@ def persistent_trace(
     popped ray failed the entry slab test.  THE dead-ray scheduling
     fix for the camera-regen path: ~50% of a tight-AABB scene's camera
     rays never enter the grid, and a single-pop refill charges each
-    one a full round of its lane (measured: 176 -> 127 rounds on spot
-    1024^2 from compaction alone — but compaction's per-round
-    work_ids gather costs MORE than the rounds it saves, 79.0 vs
-    69.3 ms; retries drain dead rays with pure VPU re-pops instead).
-    None = auto: 3 with camera regen (re-pops are arithmetic; measured
-    knee, +21% on spot), 0 for the gather-refill path (each attempt
-    re-gathers (W,8) rows).  Bit-identical output for any value
+    one a full round of its lane (176 -> 127 rounds on spot 1024^2
+    from compaction alone — but on the previous chip compaction's
+    per-round work_ids gather cost more than the rounds it saved;
+    retries drain dead rays with arithmetic re-pops instead).
+    None = auto: 3 with camera regen (re-pops are arithmetic; the
+    previous chip's knee, not yet tuned on the H100), 0 for the
+    gather-refill path (each attempt re-gathers (W,8) rows).  Bit-identical output for any value
     (results scatter by ray id).
     """
     r = rays.count
@@ -190,8 +189,8 @@ def persistent_trace(
         # total lane-work / wave width, plus one straggler's full walk
         max_iters = -(-r * per_ray // w) + per_ray + 8
     # With a static `camera`, popped rays are REGENERATED from their
-    # index (camera_ray_at — pure VPU math, bitwise == camera_rays)
-    # instead of gathered from an (R, 8) HBM table; `rays` then only
+    # index (camera_ray_at — pure arithmetic, bitwise == camera_rays)
+    # instead of gathered from an (R, 8) device table; `rays` then only
     # supplies the count.  The gather refill path serves shadow/bounce
     # batches whose rays exist only as data.
     packed = None if camera is not None else _pack_rays(rays)
@@ -225,8 +224,8 @@ def persistent_trace(
         if order_keys is not None:
             key = jnp.where(live, order_keys.astype(jnp.float32), jnp.inf)
             # M-CLASS stable counting sort, not a full argsort: a 1M-key
-            # jnp.argsort measured ~17 ms on v5e — more than the
-            # occupancy it buys back.  Straggler overlap only needs the
+            # argsort cost more than the occupancy it buys back on the
+            # previous chip.  Straggler overlap only needs the
             # long walks to START early, so a handful of difficulty
             # classes (linear quantization over the live key range;
             # dead rays in the last class) captures the win with
@@ -263,20 +262,16 @@ def persistent_trace(
         work_ids = None
         n_work = jnp.asarray(r, jnp.int32)
 
-    # NEGATIVE RESULT (kept so it is not retried): baking the
-    # compaction/order INTO the ray table — queue position k's row
-    # pre-gathered to hold ray work_ids[k] plus its id, so pops skip
-    # the work_ids indirection — is a measured LOSS on every workload.
-    # Built by row scatter it costs ~+95 ms/frame (the repo's measured
-    # (N,k) row-scatter penalty); built by gather it still pays a full
-    # R-row table build PER SEGMENT, which dwarfs what it saves: the
-    # mostly-dead bounce batches it would serve have few LIVE pops (the
-    # per-pop indirection the build would amortize is nearly free), and
-    # full primaries' dead pops only shorten the queue drain, not the
-    # straggler-bound tail (nefertiti 151 -> 188 ms, parallel scene
-    # 9.2 -> 7.7, GI 8.4 -> 6.1 Mpaths/s).  The work_ids indirection
-    # below is the right cost model: O(R) 1-D build + one extra (W,)
-    # int gather per refill, paid only on live pops.
+    # NEGATIVE RESULT on the previous chip (kept so it is not retried
+    # blindly): baking the compaction/order INTO the ray table — queue
+    # position k's row pre-gathered to hold ray work_ids[k] plus its
+    # id, so pops skip the work_ids indirection — lost on every
+    # workload there.  It pays a full R-row table build PER SEGMENT,
+    # which dwarfs what it saves: the mostly-dead bounce batches it
+    # would serve have few LIVE pops, and full primaries' dead pops
+    # only shorten the queue drain, not the straggler-bound tail.  The
+    # work_ids indirection below costs an O(R) 1-D build + one extra
+    # (W,) int gather per refill, paid only on live pops.
 
     # Under shard_map every while_loop carry leaf must have one uniform
     # varying-axes type; fresh constants (queue cursor, output buffers,
@@ -323,10 +318,10 @@ def persistent_trace(
         # scatter in the body has provably unique indices (done lanes
         # write their distinct ray_id, idle lanes their own dump row),
         # which keeps XLA on the fast scatter lowering.  All buffers are
-        # 1-D: a measured (N,4) row scatter costs 8x a 1-D scatter on
-        # TPU (663 us vs 79 us for 16k updates into 1M rows), so the hit
-        # record is packed into one int32 code = slot_index | shadow<<30
-        # and the triangle id is resolved AFTER the loop with one gather.
+        # 1-D (an (N,4) row scatter cost 8x a 1-D one on the previous
+        # chip), so the hit record is packed into one int32 code =
+        # slot_index | shadow<<30 and the triangle id is resolved AFTER
+        # the loop with one gather.
         next=jnp.asarray(0, jnp.int32),
         **({"out_t": jnp.full((r + w,), inf, jnp.float32)} if need_t else {}),
         out_code=jnp.full((r + w,), -1, jnp.int32),
@@ -342,8 +337,8 @@ def persistent_trace(
     )
 
     if refill_retries is None:
-        # measured knee on spot 1024^2 (camera regen): 0/1/2/3/4/6
-        # retries -> 75.6/65.9/63.6/62.5/62.6/64.3 ms
+        # the previous chip's knee on spot 1024^2 (camera regen); not
+        # yet tuned on the H100
         refill_retries = 3 if camera is not None else 0
 
     def pop_once(s):

@@ -1,6 +1,6 @@
 """Uniform-grid 3D-DDA traversal as a masked, fixed-bound vector march.
 
-TPU-native re-design of the reference's per-ray PBRT grid walk
+Batched re-design of the reference's per-ray PBRT grid walk
 (Serial/grid.h:167-231, Parallel/grid.cuh:224-290).  Instead of one
 divergent loop per ray, a whole ray batch advances in lock-step inside a
 single `lax.while_loop`: every live ray tests the (padded) triangle list

@@ -197,11 +197,9 @@ def whitted_wave_trace(
     def pop_once(s):
         """Idle lanes pop the next unserved pixels (the deterministic
         cumsum queue) and regenerate their camera ray from the index —
-        pure VPU math, ZERO gathers (a bitset-of-live-pixels variant
-        was measured and killed: its per-attempt (W,) bool gather costs
-        a full gather-engine issue per index, the same price as a
-        128-lane row fetch — parallel scene 11.3 -> 6.6, nefertiti
-        9.0 -> 6.8 Mrays/s)."""
+        pure arithmetic, ZERO gathers (a bitset-of-live-pixels variant
+        lost on the previous chip: its per-attempt (W,) bool gather
+        cost as much as a whole row fetch)."""
         idle = ~s["alive"]
         order = jnp.cumsum(idle.astype(jnp.int32))
         new_id = jnp.where(idle, s["next"] + order - 1, s["ray_id"])

@@ -2,7 +2,7 @@
 
 The reference is single-GPU with no distributed backend (SURVEY.md §2:
 the only transport is cudaMemcpy, Parallel/raytracer.cu:583-693).  This
-package is the TPU-native scaling layer it lacks:
+package is the scaling layer it lacks:
 
   * `mesh`        — device-mesh construction ("rays" × "tris" axes);
   * `shard`       — shard_map renderers: rays/tiles data-parallel over
@@ -10,7 +10,7 @@ package is the TPU-native scaling layer it lacks:
                     all-pairs intersection for giant scenes;
   * `collectives` — the explicit collectives API (tile scatter, image
                     gather, gradient all-reduce) layered on XLA
-                    psum/all_gather over ICI/DCN.
+                    psum/all_gather across devices.
 """
 
 from ray_tracer_tpu.parallel.mesh import make_mesh

@@ -2,7 +2,7 @@
 
 The reference has no distributed transport at all (SURVEY.md §2); this is
 the framework's first-class equivalent: named-axis wrappers over XLA
-collectives that ride ICI within a slice and DCN across slices.  These
+collectives (NCCL over NVLink between the cards of a host).  These
 are building blocks for custom shard_map programs; the stock renderers
 in parallel/shard.py use them implicitly via in/out specs and grad
 transposition.
@@ -41,7 +41,7 @@ def pcast_varying(tree: Any, want: frozenset) -> Any:
 
 
 def allreduce_gradients(grads: Any, axis: str = "rays") -> Any:
-    """Sum parameter gradients over the mesh axis (psum over ICI/DCN).
+    """Sum parameter gradients over the mesh axis (psum across the axis).
     Call inside a shard_map body after a local backward pass; XLA's
     latency-hiding scheduler overlaps it with remaining backward work."""
     return jax.tree.map(lambda g: jax.lax.psum(g, axis) if g is not None else None, grads)

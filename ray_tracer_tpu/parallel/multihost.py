@@ -1,11 +1,11 @@
 """Multi-host bring-up: process groups and cross-host data movement.
 
 The reference has no distributed backend at all (SURVEY.md §2); this is
-the framework's multi-host layer.  On a pod slice every host runs the
-same program: `initialize()` forms the process group over DCN, the
-global mesh spans all chips, `shard_map` programs (parallel/shard.py)
-run unchanged — XLA routes collectives over ICI within a slice and DCN
-across slices.
+the framework's multi-host layer.  Every process runs the same
+program: `initialize()` forms the process group, the global mesh spans
+all devices of all processes, and `shard_map` programs
+(parallel/shard.py) run unchanged — XLA routes the collectives between
+devices and processes.
 
 Single-process (1 host, N chips, or the CPU-simulated mesh used in
 tests) is the degenerate case: every helper works without
@@ -30,8 +30,10 @@ def initialize(
 ) -> None:
     """Form the multi-host process group (idempotent).
 
-    With no arguments, jax.distributed auto-detects the TPU pod
-    environment (hostnames/megascale env).  Explicit arguments support
+    With no arguments, jax.distributed auto-detects only a cluster
+    environment it knows (e.g. SLURM); a plain GPU host has none, so
+    pass the coordinator address ("localhost:<port>" on one host), the
+    process count and this process's id.  The same arguments run the
     CPU-cluster simulation: one python process per fake host with
     jax.distributed.initialize(addr, N, i).
 
@@ -72,7 +74,7 @@ def is_host0() -> bool:
 def global_mesh(axis_names: Tuple[str, ...] = ("rays",),
                 shape: Optional[Sequence[int]] = None) -> Mesh:
     """Mesh over ALL devices of ALL hosts, host-major so the "rays"
-    data-parallel axis crosses DCN only at host boundaries."""
+    data-parallel axis crosses the network only at host boundaries."""
     devices = jax.devices()
     n = len(devices)
     if shape is None:

@@ -3,7 +3,7 @@
 Renders the prepared scene on meshes of growing device counts and
 reports throughput and efficiency vs the single-device baseline, plus a
 work-balance diagnostic (max/mean DDA steps per shard) that predicts
-scaling before a pod is available: lock-step waves scale at
+scaling before several devices are available: lock-step waves scale at
 mean/max balance, which is what the round-robin tile striding in
 parallel/shard.py is there to fix.
 """
@@ -20,10 +20,6 @@ from ray_tracer_tpu.parallel.mesh import make_mesh
 from ray_tracer_tpu.parallel.shard import render_sharded, stride_permutation
 
 
-def _sync(x) -> float:
-    return float(jax.device_get(x.reshape(-1)[0]))
-
-
 def scaling_report(
     prep,
     device_counts: Optional[List[int]] = None,
@@ -31,7 +27,7 @@ def scaling_report(
 ) -> Dict[str, object]:
     """Throughput vs device count on the current platform.
 
-    On a real pod this is the BASELINE scaling metric; on the CPU
+    On real devices this is the BASELINE scaling metric; on the CPU
     simulation it validates the machinery and the balance diagnostic
     (virtual-device times share one host, so efficiency there is not
     meaningful hardware data).
@@ -46,12 +42,12 @@ def scaling_report(
     base_per_device = None
     for n in device_counts:
         mesh = make_mesh(n, ("rays",))
-        _sync(render_sharded(prep, mesh=mesh))  # compile
+        jax.block_until_ready(render_sharded(prep, mesh=mesh))  # compile
         t0 = time.perf_counter()
         img = None
         for _ in range(repeats):
             img = render_sharded(prep, mesh=mesh)
-        _sync(img)
+        jax.block_until_ready(img)
         sec = (time.perf_counter() - t0) / repeats
         mrays = rays / sec / 1e6
         if base_per_device is None:

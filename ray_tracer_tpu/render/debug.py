@@ -2,7 +2,7 @@
 
 The reference hard-wires a debug thread for pixel (275, 240) whose AABB
 slab test prints bounds/ray state (Parallel/raytracer.cu:367,
-Parallel/geometry.cuh:237-255).  The TPU-native equivalent: trace any
+Parallel/geometry.cuh:237-255).  The equivalent here: trace any
 pixel through every stage and return the intermediates as a dict —
 no special-cased kernel, just the same pure functions on a 1-ray batch.
 """

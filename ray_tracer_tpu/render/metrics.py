@@ -129,18 +129,17 @@ def collect_render_metrics(prep) -> Dict[str, float]:
 
 def choose_camera_refill(prep, threshold: float = 0.45,
                          stride: int = 8) -> bool:
-    """Measured policy for RenderConfig.camera_refill.
+    """Policy for RenderConfig.camera_refill.
 
     The persistent wave's zero-gather camera refill (regenerate popped
-    rays from their pixel index) wins when a large fraction of camera
-    rays never enter the grid AABB: failed pops re-run as pure VPU
-    retries instead of charging rounds (spot: 61% dead, +21% measured
-    for regen+retries).  At lower dead fractions the per-refill camera
-    math COSTS more than the (W,8) table gather it replaces — measured
-    174-182 ms regen vs 148 ms gather on nefertiti 1024^2 (33% dead;
-    the parallel scene sits at 35%).  Rule: regen iff the strided slab
-    probe finds >= threshold of camera rays never entering (0.45
-    separates the measured scenes)."""
+    rays from their pixel index) won on the previous chip when a large
+    fraction of camera rays never enter the grid AABB: failed pops
+    re-run as arithmetic retries instead of charging rounds (spot: 61%
+    dead).  At lower dead fractions the per-refill camera math cost
+    more than the (W,8) table gather it replaces (nefertiti 1024^2: 33%
+    dead; the parallel scene sits at 35%).  Rule: regen iff the strided
+    slab probe finds >= threshold of camera rays never entering (0.45
+    separates those scenes; carried over, not yet tuned on the H100)."""
     import dataclasses
 
     from ray_tracer_tpu.ops.traverse_packed import _slab_entry
@@ -193,19 +192,19 @@ def estimate_coverage(prep, stride: int = 8) -> float:
 
 
 def choose_fused_shadow(prep, threshold: float = 0.75, stride: int = 8) -> bool:
-    """Measured policy for RenderConfig.fused_shadow.
+    """Policy for RenderConfig.fused_shadow.
 
     Persistent scheduler: always fuse.  A retiring lane rearms in place
     and refills the same round, so there is no tile tail for the heavier
-    fused body to waste — measured wins at BOTH ends of the density
-    range (spot ~55% coverage and the 261k-tri stand-in at ~100%:
-    5.25 fused vs 4.88 two-pass Mrays/s, docs/PERFORMANCE.md).
+    fused body to waste — it won at BOTH ends of the density range on
+    the previous chip (spot ~55% coverage and the 261k-tri stand-in at
+    ~100%).
 
-    Tiled scheduler: fusing wins on SPARSE scenes (the shadow work hides
-    in the primary tail: +20% on spot) and loses on dense full-frame
-    ones (-19% on the stand-in, where every lock-step tile runs both
-    phases and only the heavier body remains).  The crossover sits well
-    above spot and below full coverage — threshold 0.75 by measurement."""
+    Tiled scheduler: fusing won on SPARSE scenes (the shadow work hides
+    in the primary tail) and lost on dense full-frame ones (every
+    lock-step tile runs both phases and only the heavier body remains).
+    The crossover sits well above spot and below full coverage —
+    threshold 0.75, carried over and not yet tuned on the H100."""
     if prep.cfg.render.scheduler == "persistent":
         return True
     return estimate_coverage(prep, stride=stride) < threshold

@@ -837,8 +837,8 @@ def render_pt(prep) -> jnp.ndarray:
     else runs the segment-loop integrator under ONE module-level jit
     with static (meta, cfg) — an inner `@jax.jit def run` closure
     would be a FRESH jit cache per call, re-tracing the whole
-    multi-traversal graph every frame (measured: ~6 s/frame re-trace
-    vs ~40 ms of device work at 512², gi_depth=0)."""
+    multi-traversal graph every frame — seconds of host time per frame,
+    far more than the frame's device work."""
     cfg = prep.cfg
     if gi_wave_eligible(prep):
         return _render_pt_wave(prep)

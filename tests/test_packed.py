@@ -283,7 +283,7 @@ def test_traverse_packed_matches_brute(tiny_prep, packed):
 
 
 def test_wide_block_traversal_matches_brute(tiny_prep):
-    """56-triangle/512-lane block rows (the TPU-tuned production config)
+    """56-triangle/512-lane block rows (a previously tuned production config)
     find exactly the same hits."""
     prep = tiny_prep
     wide = pack_grid(

@@ -454,3 +454,111 @@ def test_shadow_skip_dead_bitwise(tiny_prep):
     finally:
         P.persistent_trace = orig
     np.testing.assert_array_equal(on, off)
+
+
+def _packed_gradcheck(tiny_prep, layout):
+    cfg = dataclasses.replace(
+        tiny_prep.cfg,
+        render=dataclasses.replace(
+            tiny_prep.cfg.render, traversal="packed", faithful=False,
+            det_dtype="float32", grid_layout=layout, packed_block_tris=14,
+        ),
+    )
+    return prepare(cfg, scene=tiny_prep.scene)
+
+
+def _march_winner_pick(prep):
+    """March the camera rays with need_hit_tri and return the final
+    (best_t, best_blk, best_slot, best_tri9) as numpy arrays."""
+    import jax
+
+    from ray_tracer_tpu.ops.traverse_packed import _march_step, _slab_entry
+
+    grid, meta = prep.packed.arrays, prep.packed.meta
+    rays = camera_rays(prep.cfg.camera)
+    o = rays.orig.astype(jnp.float32)
+    d = rays.dirn.astype(jnp.float32)
+    maxt = rays.maxt.astype(jnp.float32)
+    t0, entered = _slab_entry(grid, o, d, rays.mint.astype(jnp.float32), maxt)
+    r = o.shape[0]
+    zi = jnp.zeros((r,), jnp.int32)
+    s = dict(alive=entered, testing=jnp.zeros((r,), bool), t_cur=t0,
+             t_exit_cell=jnp.zeros((r,), jnp.float32), first_blk=zi,
+             n_blk=zi, cursor=zi, best_t=jnp.full((r,), jnp.inf, jnp.float32),
+             best_blk=zi, best_slot=zi,
+             best_tri9=jnp.zeros((r, 9), jnp.float32))
+    step = jax.jit(lambda s: _march_step(
+        s, o=o, d=d, invd=1.0 / d, gate=jnp.zeros((r,), jnp.float32),
+        maxt=maxt, grid=grid, meta=meta, need_hit_tri=True))
+    for _ in range(4 * meta.n_voxels[0] * (meta.max_blocks + 1) + 64):
+        if not bool(s["alive"].any()):
+            break
+        s = step(s)
+    assert not bool(s["alive"].any()), "march did not finish"
+    return {k: np.asarray(s[k]) for k in
+            ("best_t", "best_blk", "best_slot", "best_tri9")}
+
+
+def _assert_pick_is_row_gather(prep, got):
+    blocks = np.asarray(prep.packed.arrays.blocks)
+    hit = np.isfinite(got["best_t"])
+    assert hit.any() and not hit.all()
+    bt = prep.packed.meta.block_tris
+    rows = blocks[got["best_blk"][hit]][:, : bt * 9].reshape(-1, bt, 9)
+    want = rows[np.arange(rows.shape[0]), got["best_slot"][hit]]
+    # bitwise: an exact selection, never a rounded contraction
+    np.testing.assert_array_equal(got["best_tri9"][hit].view(np.uint32),
+                                  want.astype(np.float32).view(np.uint32))
+
+
+@pytest.mark.parametrize("layout", ["inline", "blocks"])
+def test_winner_pick_is_exact_row_gather(tiny_prep, layout):
+    """_march_step's best_tri9 (read by the dead-shadow skip and the
+    in-wave shading) is exactly the winning slot's 9 floats of the
+    winning row, bit for bit."""
+    prep = _packed_gradcheck(tiny_prep, layout)
+    assert prep.packed.meta.inline == (layout == "inline")
+    _assert_pick_is_row_gather(prep, _march_winner_pick(prep))
+
+
+def test_fused_shadow_skip_reads_exact_winner(tiny_prep):
+    """The fused-shadow persistent march with the dead-shadow skip on
+    the gradcheck scene: hits and triangles equal the skip-off march,
+    and every lane whose shadow flag the skip changed has exactly zero
+    direct light at its true winning triangle."""
+    prep = _packed_gradcheck(tiny_prep, "auto")
+    rays = camera_rays(prep.cfg.camera)
+    light = prep.scene.light_pos
+    kw = dict(wave=64, t_gate=0.0, fuse_shadow=True, shadow_gate=1e-3,
+              shadow_mint=1e-3, serial_quirk=False, shade_serial=False)
+    on = persistent_trace(rays, prep.packed.arrays, prep.packed.meta, light,
+                          shadow_skip_dead=True, **kw)
+    off = persistent_trace(rays, prep.packed.arrays, prep.packed.meta, light,
+                           shadow_skip_dead=False, **kw)
+    np.testing.assert_array_equal(np.asarray(on.hit), np.asarray(off.hit))
+    np.testing.assert_array_equal(np.asarray(on.tri_id), np.asarray(off.tri_id))
+    changed = np.asarray(on.in_shadow) != np.asarray(off.in_shadow)
+    assert changed.any(), "the skip never fired on this scene"
+    assert not np.asarray(on.in_shadow)[changed].any()
+    tri = np.asarray(prep.scene.verts, np.float64)[
+        np.asarray(prep.scene.faces)[np.asarray(on.tri_id)[changed]]]
+    a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+    n = np.cross(c - b, a - b)  # the parallel-shading facet normal
+    o = np.asarray(rays.orig, np.float64)[changed]
+    d = np.asarray(rays.dirn, np.float64)[changed]
+    t = np.asarray(off.t, np.float64)[changed]
+    to_l = np.asarray(light, np.float64) - (o + d * t[:, None])
+    l = to_l / np.linalg.norm(to_l, axis=-1, keepdims=True)
+    assert (np.sum(n * l, axis=-1) <= 0).all()
+    assert (np.sum(n * (l - d), axis=-1) <= 0).all()
+
+
+@pytest.mark.gpu
+def test_winner_pick_is_exact_on_gpu(tiny_prep, gpu):
+    """The same bitwise pin where it matters: on the card, where an f32
+    contraction may run at reduced precision."""
+    import jax
+
+    with jax.default_device(gpu):
+        prep = _packed_gradcheck(tiny_prep, "inline")
+        _assert_pick_is_row_gather(prep, _march_winner_pick(prep))

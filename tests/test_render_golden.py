@@ -1,4 +1,4 @@
-"""Golden-image tests: the TPU framework vs the re-hosted C++ oracle.
+"""Golden-image tests: the JAX framework vs the re-hosted C++ oracle.
 
 BASELINE config 1: the serial reference scene must match bit-for-bit
 (with float64 determinants on CPU, mirroring the oracle's double-

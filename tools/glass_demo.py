@@ -4,8 +4,8 @@ A glass sphere (transmissive, ior 1.52) in front of a matte red sphere
 on a blue floor under a vertical-gradient sky: the refracted (inverted)
 image of the scene shows through the glass, with a Fresnel-bright rim
 at grazing angles — the physics tests/test_dielectric.py pins, at
-picture scale.  Runs on whatever backend jax picks (TPU on the bench
-host, CPU elsewhere).
+picture scale.  Runs on whatever backend jax picks (the GPU where
+there is one, CPU elsewhere).
 
 Usage: python tools/glass_demo.py [size] [spp]
 """
